@@ -1,14 +1,14 @@
-"""mpc_quad_ros_tpu — a TPU-native quadrotor-MPC + online recursive-GP framework.
+"""mpc_quad_ros_tpu — a batched quadrotor-MPC + online recursive-GP framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 system `smidmatej/mpc_quad_ros` (nonlinear MPC for a 13-state quadrotor with
 online recursive-Gaussian-process drag learning).  Everything on the compute
 path is a pure, jit/vmap/pjit-compatible function:
 
 - ``utils``    : quaternion/rotation algebra, reference-chunk gathers, IO helpers
 - ``models``   : quadrotor rigid-body dynamics (plant + MPC model), GP / RGP
-- ``ops``      : the MPC engine — SQP-RTI linearization, condensed box-QP solvers
-                 (XLA and Pallas paths)
+- ``ops``      : the MPC engine — SQP-RTI linearization, condensed box-QP and
+                 Riccati solvers, per scenario and batched
 - ``traj``     : trajectory generation (analytic circles, min-snap polynomials —
                  native C++ optimizer, CSV-compatible with the reference)
 - ``loop``     : closed-loop episodes as ``lax.scan``; scenario batching via vmap

@@ -130,7 +130,7 @@ def replay_reference_log(log_path: str, n_nodes: int = 5, t_horizon: float = 1.0
             MU = P.reshape(T, 3, nb)
             assert rgp_basis is not None, "ROS gp2 logs need rgp_basis"
             Xb = np.asarray(rgp_basis)
-            theta = np.tile(np.asarray(rgp_theta or (1.0, 0.1, 0.1),
+            theta = np.tile(np.asarray(rgp_theta if rgp_theta is not None else (1.0, 0.1, 0.1),
                                        np.float64), (3, 1))  # RGP.__init__ default
         # solve at tick k consumed the posterior from tick k-1; tick 0's true
         # pre-log posterior is unlogged (line-to-hover) — approximate with

@@ -5,8 +5,7 @@ call (`t_cpu`, `elapsed_during_mpc` — SURVEY §5.1).  Here:
 
 - `timed` / `Stopwatch`: wall-clock phase timers with block_until_ready.
 - `profile_solver_phases`: per-phase breakdown of one batched MPC solve
-  (linearize / condense+assemble / QP / update) — the flamegraph-lite that
-  drove the Pallas-kernel optimization.
+  (linearize / condense / QP / expand), each phase its own jitted program.
 - `trace`: context manager around `jax.profiler.trace` emitting a TensorBoard
   / Perfetto trace directory for the real thing.
 """
@@ -66,36 +65,35 @@ def trace(log_dir: str):
 
 
 def profile_solver_phases(solver, carry, x0, y_ref, aug=None, iters: int = 10) -> dict:
-    """Wall-clock per-phase breakdown of one batched solve.  All inputs
-    batch-major (leading B)."""
-    from ..ops.pallas.qp_kernel import solve_box_qp_pdip_pallas
-    from ..ops.sqp import _interpret_mode
+    """Wall-clock per-phase breakdown of one `solve_batch` Gauss-Newton step
+    of the condensed backend.  All inputs batch-major (leading B)."""
+    from ..models.augmented import fold_drag
+    from ..ops import lanes
+    from ..ops.qp import HP, qp_kkt_residual
 
     B = x0.shape[0]
     cfg = solver.cfg
+    aug = fold_drag(aug)
+    last = lambda a: jnp.moveaxis(a, 0, -1)
 
-    lin = jax.jit(jax.vmap(lambda X, U, a: solver._linearize(X, U, a))
-                  if aug is not None else
-                  jax.vmap(lambda X, U: solver._linearize(X, U, None)))
-    lin_args = (carry.X, carry.U, aug) if aug is not None else (carry.X, carry.U)
-
-    if aug is not None:
-        asm = jax.jit(jax.vmap(solver._assemble))
-        asm_args = (carry.X, carry.U, x0, y_ref, y_ref[:, -1], aug)
-    else:
-        asm = jax.jit(jax.vmap(lambda X, U, x, yr, yN: solver._assemble(X, U, x, yr, yN, None)))
-        asm_args = (carry.X, carry.U, x0, y_ref, y_ref[:, -1])
-
-    H, g, lb, ub, M, d = asm(*asm_args)
-    qp = jax.jit(lambda H, g, lb, ub: solve_box_qp_pdip_pallas(
-        H, g, lb, ub, iters=cfg.qp_iters, interpret=_interpret_mode()))
-
+    lin = jax.jit(solver._linearize_batch)
+    A, Bm, r = lin(carry.X, carry.U, aug)
+    cond = jax.jit(jax.vmap(solver._cost_from_lin))
+    cond_args = (carry.X, carry.U, x0, y_ref, y_ref[:, -1], A, Bm, r)
+    H, g, lb, ub, M, d = cond(*cond_args)
+    qp = jax.jit(lambda H, g, lb, ub: jnp.moveaxis(lanes.box_qp_pdip(
+        last(H), last(g), last(lb), last(ub), iters=cfg.qp_iters)[0], -1, 0))
+    z = qp(H, g, lb, ub)
+    expand = jax.jit(lambda X, M, d, z, H, g, lb, ub: (
+        X + d + jnp.einsum("bkxz,bz->bkx", M, z, precision=HP),
+        jax.vmap(qp_kkt_residual)(H, g, lb, ub, z)))
     full = jax.jit(lambda c, x, yr, a: solver.solve_batch(c, x, yr, yr[:, -1], a)[1].U)
 
     res = {
-        "linearize_s": timed(lin, *lin_args, iters=iters),
-        "assemble_s": timed(asm, *asm_args, iters=iters),
+        "linearize_s": timed(lin, carry.X, carry.U, aug, iters=iters),
+        "condense_s": timed(cond, *cond_args, iters=iters),
         "qp_s": timed(qp, H, g, lb, ub, iters=iters),
+        "expand_s": timed(expand, carry.X, M, d, z, H, g, lb, ub, iters=iters),
         "full_solve_s": timed(full, carry, x0, y_ref, aug, iters=iters),
         "batch": B,
     }

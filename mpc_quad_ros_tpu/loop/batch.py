@@ -53,11 +53,12 @@ def run_episode_batch_fused(
 ):
     """Batch-major episode scan: one scan over ticks whose body operates on
     the WHOLE scenario batch, so the condensed QPs of all episodes are solved
-    together by the Pallas lanes-batched IPM kernel (`SQPSolver.solve_batch`).
+    together by `SQPSolver.solve_batch` (lanes-last from LANES_MIN_BATCH
+    episodes on).
 
     Numerically equivalent to `run_episode_batch` (vmap-of-scan); this is the
     throughput path — the vmap-of-scan form leaves the QP as B independent
-    40x40 Cholesky chains that XLA solves at ~6% of the Pallas kernel's rate.
+    40x40 Cholesky chains.
 
     HETEROGENEOUS batches (SURVEY §7 "per-episode heterogeneity at scale" —
     mixed v_max means mixed trajectory lengths): pad every trajectory to one
@@ -72,8 +73,7 @@ def run_episode_batch_fused(
     homogeneous run to chaos-amplified rounding (~1e-3 in position after 30
     ticks: different batch shapes compile to different XLA fusions, whose
     one-ulp reduction-order differences the 12-iter IPM and the closed loop
-    amplify — same mechanism as the pipeline convergence slack, see
-    tests/test_pipeline_equivalence.py); with IDENTICAL shapes the masked
+    amplify — the f32 convergence slack of CLAUDE.md); with IDENTICAL shapes the masked
     path is bitwise-equal to the unmasked one (`tests/test_hetero_batch.py`).
 
     Returns (final_carry, EpisodeOutput) with leading dims (B, n_ticks, ...).

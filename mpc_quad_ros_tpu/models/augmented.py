@@ -37,6 +37,37 @@ class FoldedDrag(NamedTuple):
     sigma_f: jnp.ndarray  # (3,) RBF signal scale per axis
 
 
+def _drag_kernel(vb, X_b, L_b, sf_b):
+    diff = vb[:, None] - X_b
+    k = sf_b[:, None] ** 2 * jnp.exp(-0.5 * diff**2 / (L_b[:, None] ** 2))
+    return diff, k
+
+
+@jax.custom_jvp
+def drag_mean(vb, X_b, w_b, L_b, sf_b):
+    """Per-axis folded drag mean sum_b k(vb_a, X_ab) w_ab in lane-major
+    layout: vb (3, ...), X_b/w_b (3, nb, ...), L_b/sf_b (3, ...), where
+    "..." is any trailing batch shape.
+
+    Each axis's mean is a 1-D GP in vb[a] alone, so its Jacobian in vb is
+    DIAGONAL.  The custom rule computes (mean, Jdiag) from the primal once
+    and each tangent costs one multiply, where plain AD re-sweeps the
+    (3, nb, ...) kernel products for every tangent — 17 of them per RK4
+    linearization.  Only vb carries a tangent: the model is frozen during
+    a solve."""
+    _, k = _drag_kernel(vb, X_b, L_b, sf_b)
+    return jnp.sum(k * w_b, axis=1)
+
+
+@drag_mean.defjvp
+def _drag_mean_jvp(primals, tangents):
+    vb, X_b, w_b, L_b, sf_b = primals
+    diff, k = _drag_kernel(vb, X_b, L_b, sf_b)
+    kw = k * w_b
+    jdiag = jnp.sum(kw * (-diff / (L_b[:, None] ** 2)), axis=1)
+    return jnp.sum(kw, axis=1), jdiag * tangents[0]
+
+
 def fold_drag(aug):
     """Fold an RGP/GP ensemble state into FoldedDrag (idempotent; None and
     already-folded pass through, unknown pytrees are returned unchanged).
@@ -44,7 +75,8 @@ def fold_drag(aug):
     if aug is None or isinstance(aug, FoldedDrag):
         return aug
     if isinstance(aug, RGPState):
-        w = jnp.einsum("...ij,...j->...i", aug.K_x_inv, aug.mu_g)
+        w = jnp.einsum("...ij,...j->...i", aug.K_x_inv, aug.mu_g,
+                       precision=jax.lax.Precision.HIGHEST)
         return FoldedDrag(X=aug.X, w=w, L=aug.theta[..., 0], sigma_f=aug.theta[..., 1])
     if isinstance(aug, GPState):
         return FoldedDrag(X=aug.X, w=aug.alpha, L=aug.theta[..., 0],
@@ -101,5 +133,4 @@ def make_mpc_dynamics(params: QuadParams) -> Callable:
     from .dynamics_soa import make_mpc_dynamics_soa
 
     f.soa = make_mpc_dynamics_soa(params)
-    f.params = params   # lets the solver build the Pallas linearize kernel
     return f

@@ -1,36 +1,36 @@
 """Structure-of-arrays MPC dynamics: the linearization hot path, lane-major.
 
 Same math as `make_mpc_dynamics` (`augmented.py` / `dynamics._f_core`,
-reference `quad_opt.py:164-262`), but with the state laid out as (13, M) —
-component index leading, the flattened scenario-x-node batch M trailing.  On
-TPU the trailing axis maps to the 128-wide vector lanes, so every operation
-in the dynamics AND in each of the 17 jacfwd tangents through the RK4
-shooting map vectorises across scenarios, instead of across the 13/17-sized
-state dims (~10% lane utilisation) of the array-of-structures layout.
-Measured: the batched SQP linearization drops ~5x (B=4096, N=10, v5e).
+reference `quad_opt.py:164-262`), but with the state laid out as (13, *M) —
+component index leading, the (node, scenario) batch trailing — so every
+operation in the dynamics AND in each of the 17 forward tangents through the
+RK4 shooting map is one elementwise sweep over all scenarios, instead of
+B*N tiny 13- or 17-wide problems.  On one H100 (400 W limit) the batched
+linearization takes 8.0 ms this way at B=65536, N=10, against 16.5 ms for
+vmapped jacfwd of the array-of-structures model, timed in one run (PERF.md).
 
-Used by `SQPSolver.solve_batch` via the `.soa` attribute that
-`make_mpc_dynamics` attaches; `tests/test_soa.py` pins it against the
-jacfwd-of-AoS oracle.
+Used by `SQPSolver.solve_batch` (`ops/lanes.linearize`) via the `.soa`
+attribute that `make_mpc_dynamics` attaches; `tests/test_soa.py` pins it
+against the jacfwd-of-AoS oracle.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-import jax
 import jax.numpy as jnp
 
-from .augmented import FoldedDrag
+from .augmented import FoldedDrag, drag_mean
 from .params import QuadParams
 
 
 def make_mpc_dynamics_soa(p: QuadParams) -> Callable:
     """Continuous-time MPC model in SoA layout.
 
-    Returns f(x, u, aug) with x: (13, M), u: (4, M), aug: None or a
-    FoldedDrag whose leaves carry a trailing M axis (X/w: (3, nb, M),
-    L/sigma_f: (3, M)) or no M axis (shared model).  Output: (13, M).
+    Returns f(x, u, aug) with x: (13, *M), u: (4, *M) for any trailing
+    batch shape M, aug: None or a FoldedDrag whose leaves carry trailing
+    axes that broadcast against M (X/w: (3, nb, *M), L/sigma_f: (3, *M)) or
+    none (shared model).  Output: (13, *M).
     """
     # params are scalars / small vectors (the MPC model is the nominal quad).
     # Op order/association mirrors `_f_core` exactly so results match the
@@ -43,7 +43,10 @@ def make_mpc_dynamics_soa(p: QuadParams) -> Callable:
         vx, vy, vz = x[7], x[8], x[9]
         wx, wy, wz = x[10], x[11], x[12]
 
-        ft = u * p.rotor_functionality[:, None] * p.max_thrust  # (4, M)
+        def col(v):                                    # (4,) -> (4, 1, ...)
+            return v.reshape(v.shape + (1,) * (u.ndim - 1))
+
+        ft = u * col(p.rotor_functionality) * p.max_thrust  # (4, *M)
         thrust = jnp.sum(ft, axis=0)
 
         # attitude: q̇ = ½ S(w) q  (same closed form as `quaternion_derivative`)
@@ -73,22 +76,20 @@ def make_mpc_dynamics_soa(p: QuadParams) -> Callable:
             vbx = r11 * vx + r21 * vy + r31 * vz
             vby = r12 * vx + r22 * vy + r32 * vz
             vbz = r13 * vx + r23 * vy + r33 * vz
-            vb = jnp.stack([vbx, vby, vbz], axis=0)    # (3, M)
+            vb = jnp.stack([vbx, vby, vbz], axis=0)    # (3, *M)
             X_b, w_b, L_b, sf_b = aug.X, aug.w, aug.L, aug.sigma_f
-            if X_b.ndim == 2:                          # shared model, no M axis
-                X_b, w_b = X_b[..., None], w_b[..., None]
-                L_b, sf_b = L_b[..., None], sf_b[..., None]
-            diff = vb[:, None, :] - X_b                # (3, nb, M)
-            k = sf_b[:, None, :] ** 2 * jnp.exp(-0.5 * diff**2 / (L_b[:, None, :] ** 2))
-            mean = jnp.sum(k * w_b, axis=1)            # (3, M) body-frame drag accel
+            if X_b.ndim == 2:                          # shared model, no M axes
+                X_b, w_b = col(X_b), col(w_b)
+                L_b, sf_b = col(L_b), col(sf_b)
+            mean = drag_mean(vb, X_b, w_b, L_b, sf_b)  # (3, *M) body-frame drag
             # rotate the learned accel back to world: a_w = R(q) mean
             avx = avx + r11 * mean[0] + r12 * mean[1] + r13 * mean[2]
             avy = avy + r21 * mean[0] + r22 * mean[1] + r23 * mean[2]
             avz = avz + r31 * mean[0] + r32 * mean[1] + r33 * mean[2]
 
-        tx = jnp.sum(ft * p.y_f[:, None], axis=0)
-        ty = -jnp.sum(ft * p.x_f[:, None], axis=0)
-        tz = jnp.sum(ft * p.z_l_tau[:, None], axis=0)
+        tx = jnp.sum(ft * col(p.y_f), axis=0)
+        ty = -jnp.sum(ft * col(p.x_f), axis=0)
+        tz = jnp.sum(ft * col(p.z_l_tau), axis=0)
         dwx = (tx + (J1 - J2) * wy * wz) / J0
         dwy = (ty + (J2 - J0) * wz * wx) / J1
         dwz = (tz + (J0 - J1) * wx * wy) / J2
@@ -98,41 +99,3 @@ def make_mpc_dynamics_soa(p: QuadParams) -> Callable:
         )
 
     return f
-
-
-def linearize_rk4_soa(f_soa: Callable, X: jnp.ndarray, U: jnp.ndarray, dt,
-                      aug: Optional[FoldedDrag] = None):
-    """RK4 shooting-map sensitivities in SoA layout.
-
-    X: (M, 13) linearization states, U: (M, 4) controls, aug as in
-    `make_mpc_dynamics_soa` (trailing-M leaves).  Returns
-    (xp (M, 13), A (M, 13, 13), B (M, 13, 4)) — the discrete step and its
-    Jacobians, identical (up to f32 reassociation) to jacfwd of the AoS step.
-    """
-    x = X.T                                            # (13, M)
-    u = U.T                                            # (4, M)
-    M = x.shape[1]
-    dtype = x.dtype
-
-    def step(x, u):
-        k1 = f_soa(x, u, aug)
-        k2 = f_soa(x + dt / 2 * k1, u, aug)
-        k3 = f_soa(x + dt / 2 * k2, u, aug)
-        k4 = f_soa(x + dt * k3, u, aug)
-        return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
-
-    xp = step(x, u)
-
-    # push the 17 basis tangents; the vmap keeps the primal unbatched (traced
-    # once) and every tangent intermediate is (13, M) — M stays in the lanes
-    basis = jnp.eye(17, dtype=dtype)
-
-    def push(e):
-        tx = jnp.broadcast_to(e[:13, None], (13, M))
-        tu = jnp.broadcast_to(e[13:, None], (4, M))
-        return jax.jvp(step, (x, u), (tx, tu))[1]      # (13, M)
-
-    J = jax.vmap(push)(basis)                          # (17, 13, M)
-    A = jnp.transpose(J[:13], (2, 1, 0))               # (M, 13, 13)
-    B = jnp.transpose(J[13:], (2, 1, 0))               # (M, 13, 4)
-    return xp.T, A, B

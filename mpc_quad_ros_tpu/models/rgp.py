@@ -15,7 +15,7 @@ Design differences (TPU-first, not a port):
   what the reference built symbolically to inject learned drag means into the
   MPC (`RGP.py:235-300`, used by `quad_opt.py:211-256`).
 - O(nb^2) per-tick math is expressed as einsums so thousands of episodes
-  batch onto the MXU/VPU.
+  batch into a few large device operations.
 """
 
 from __future__ import annotations
@@ -121,11 +121,10 @@ def rgp_regress(state: RGPState, x_t: jnp.ndarray, y_t: jnp.ndarray,
     if k == 1:
         # Fully elementwise k=1 fast path (the control-loop case).  The
         # generic path's tiny matmuls — and especially the (1,1)
-        # jnp.linalg.solve — become batched MXU dot_generals / LU custom
-        # calls under vmap over (B, 3) episodes, with catastrophic padding:
-        # measured 3.9 ms/tick at B=8192 on v5e, 37% of the whole
-        # closed-loop tick, for ~32 MFLOP of actual math.  Broadcast-
-        # multiply-reduce keeps everything on the VPU.  Same formulas
+        # jnp.linalg.solve — become batched dot_generals / LU custom calls
+        # under vmap over (B, 3) episodes, each padded far beyond its ~nb^2
+        # FLOPs of actual math.  Broadcast-multiply-reduce keeps the update
+        # one elementwise fusion, with no matrix product.  Same formulas
         # (`RGP.py:303-330`), reassociation-level numerics only (pinned vs
         # the numpy oracles in tests/test_rgp.py).
         L_, sf = state.theta[0], state.theta[1]

@@ -1,4 +1,4 @@
-"""Box-constrained dense QP solvers — the TPU-native replacement for HPIPM.
+"""Box-constrained dense QP solvers — the replacement for HPIPM.
 
 The reference delegates its condensed OCP QPs to acados' FULL_CONDENSING_HPIPM
 (C interior-point, `quad_opt.py:147`).  Here the condensed QP
@@ -20,7 +20,8 @@ Two methods:
                              these small boxes, cheaper per iteration.
 
 Both batch all linear algebra (Cholesky of nz x nz) so XLA lowers them to
-batched MXU-friendly factorizations.
+batched factorizations under vmap; `ops/lanes.box_qp_pdip` is the first one
+run lanes-last for large batches.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+
+# f32 products at full precision: a GPU would otherwise run them in TF32
+HP = jax.lax.Precision.HIGHEST
 
 
 def _sym_solve(M: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
@@ -84,10 +89,11 @@ def solve_box_qp_pdip(H: jnp.ndarray, g: jnp.ndarray, lb: jnp.ndarray, ub: jnp.n
 
     def body(carry, _):
         z, sl, su, zl, zu = carry
-        duality_gap = (sl @ zl + su @ zu) / (2 * nz)
+        duality_gap = (jnp.dot(sl, zl, precision=HP)
+                       + jnp.dot(su, zu, precision=HP)) / (2 * nz)
         mu = 0.1 * duality_gap
 
-        r = H @ z + g - zl + zu
+        r = jnp.dot(H, z, precision=HP) + g - zl + zu
         # condensed Newton matrix
         d = zl / sl + zu / su
         M = H + jnp.diag(d)
@@ -145,7 +151,7 @@ def solve_box_qp_projected_newton(H: jnp.ndarray, g: jnp.ndarray, lb: jnp.ndarra
     z = jnp.clip(jnp.zeros_like(g), lb, ub)
 
     def body(z, _):
-        grad = H @ z + g
+        grad = jnp.dot(H, z, precision=HP) + g
         at_lb = (z <= lb + eps) & (grad > 0)
         at_ub = (z >= ub - eps) & (grad < 0)
         active = at_lb | at_ub
@@ -165,6 +171,6 @@ def solve_box_qp_projected_newton(H: jnp.ndarray, g: jnp.ndarray, lb: jnp.ndarra
 def qp_kkt_residual(H, g, lb, ub, z):
     """Max KKT violation of a box-QP candidate (for tests / convergence
     telemetry): projected-gradient norm."""
-    grad = H @ z + g
+    grad = jnp.dot(H, z, precision=HP) + g
     proj = jnp.clip(z - grad, lb, ub) - z
     return jnp.max(jnp.abs(proj))

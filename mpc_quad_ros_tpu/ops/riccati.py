@@ -23,23 +23,10 @@ Two entry points:
 
 Cost per solve: `qp_iters` Riccati sweeps (vs the dense path's `qp_iters`
 O(nz^3/3) Cholesky factorizations) — O(N) scaling in the horizon retained.
-Both forms exist batched: this XLA-scan module (any B, vmapped) and the
-lanes-batched Pallas kernel (`ops/pallas/riccati_kernel.py`, B%128==0,
-dispatched by `solve_batch(qp_method="riccati")`).
-
-Measured backend crossover (TPU v5e-lite, B=256, 12 IPM iters,
-`bench.suite --what riccati_crossover`, outputs/roofline/CROSSOVER_r05.json):
-
-    N   hybrid-condensed   riccati-Pallas   (us/solve)
-    10       0.34              1.11
-    20       2.78              1.99   <- crossover ~N=17
-    40      16.3               4.28
-    80   static VMEM guard     8.67
-
-so: keep qp_method="pdip" (hybrid condensed) at the reference's N=10, switch
-to qp_method="riccati" from N~18 up (or just use qp_method="auto", which
-dispatches on this table); past FUSED_N_MAX=40 the dense H tile stops
-fitting VMEM and solve_batch guards + falls back to this sparse path.
+`SQPSolver.solve_batch` vmaps it per scenario; `qp_method="auto"` switches
+to it from `ops/sqp.AUTO_RICCATI_MIN_N`, set from the H100 sweep of
+`bench.suite.riccati_crossover` (PERF.md).  Every product here runs at
+full f32 precision (no TF32 on a GPU).
 
 Equations (standard time-varying LQR with affine terms):
     P_N = Q_N,  p_N = q_N
@@ -68,6 +55,13 @@ def riccati_step(A, B, c, Q_diag, q_lin, R_diag, r_lin, P_term_diag, p_term,
     dx0: (nx,) initial-state offset (x_measured - x̄_0); zeros if None
     u_lb/u_ub: (N, nu) bounds on du (None = unconstrained)
     """
+    with jax.default_matmul_precision("highest"):
+        return _riccati_step(A, B, c, Q_diag, q_lin, R_diag, r_lin, P_term_diag,
+                             p_term, dx0, u_lb, u_ub)
+
+
+def _riccati_step(A, B, c, Q_diag, q_lin, R_diag, r_lin, P_term_diag, p_term,
+                  dx0, u_lb, u_ub):
     N, nx, nu = B.shape
     dtype = A.dtype
     Q = jnp.diag(Q_diag.astype(dtype))
@@ -179,6 +173,13 @@ def solve_ocp_box_riccati_ipm(A, B, c, Q_diag, q_lin, R_diag, r_lin,
     Newton step poses an equality-constrained LQR in delta variables with
     dx_0-step = 0 and no defect term.  Returns (dU, dX, zl, zu).
     """
+    with jax.default_matmul_precision("highest"):
+        return _box_riccati_ipm(A, B, c, Q_diag, q_lin, R_diag, r_lin,
+                                P_term_diag, p_term, dx0, u_lb, u_ub, iters)
+
+
+def _box_riccati_ipm(A, B, c, Q_diag, q_lin, R_diag, r_lin, P_term_diag,
+                     p_term, dx0, u_lb, u_ub, iters):
     N, nx, nu = B.shape
     dtype = A.dtype
     Q = jnp.diag(Q_diag.astype(dtype))

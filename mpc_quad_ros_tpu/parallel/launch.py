@@ -2,8 +2,10 @@
 
 Spawns N copies of `mp_worker` on localhost (each with K virtual CPU
 devices, gloo collectives) and collects their npz results.  This is the
-test/bench harness for the multi-host code path; on a real pod you launch
-`mp_worker` yourself, one process per host, and skip this file.
+test/bench harness for the multi-host code path; on real hosts you launch
+`mp_worker` yourself, one process per host, and skip this file.  Every
+worker is pinned to the CPU (JAX_PLATFORMS=cpu, --platform cpu), so the
+launcher never opens a GPU: a card takes one JAX process at a time.
 
     python -m mpc_quad_ros_tpu.parallel.launch --nproc 2 --devices 4 \
         --global-batch 1024

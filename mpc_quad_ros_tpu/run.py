@@ -61,26 +61,17 @@ def build_trajectory(cfg: SimConfig, x0_pos, mpc_dt: float):
     raise ValueError(f"invalid trajectory type {cfg.trajectory}")
 
 
-def run_sim(cfg: SimConfig, verbose: bool = True):
-    """Build everything and run the closed loop.  Returns (logger, outs, extras)."""
+def build_sim(cfg: SimConfig, dtype):
+    """Everything `run_sim` builds before the closed loop runs:
+    (episode config, solver, plant params, x0, x_traj, t_traj, rgp0, gp_aug)."""
     import jax
     import jax.numpy as jnp
 
-    from .io.logger import Logger
-    from .loop import EpisodeConfig, run_episode, run_episode_batch
+    from .loop import EpisodeConfig
     from .models.augmented import make_mpc_dynamics
     from .models.ensemble import GPEnsemble
-    from .models.params import (
-        crazyflie_params,
-        default_params,
-        hummingbird_params,
-        randomize_params,
-    )
+    from .models.params import crazyflie_params, default_params, hummingbird_params
     from .ops import MPCConfig, SQPSolver
-    from .loop.episode import tracking_rmse
-
-    cfg = cfg.clamp_limits()
-    dtype = jnp.float32 if not os.environ.get("MPCQUAD_X64") else jnp.float64
 
     quad_mk = {"hummingbird": hummingbird_params, "default": default_params,
                "crazyflie": crazyflie_params}[cfg.quad]
@@ -99,12 +90,10 @@ def run_sim(cfg: SimConfig, verbose: bool = True):
 
     x_traj_np, t_traj = build_trajectory(cfg, np.asarray(x0[:3]), mpc.dt)
     x_traj = jnp.asarray(x_traj_np, dtype=dtype)
-    n_ticks = x_traj.shape[0]
 
     # --- GPE modes (`execute_trajectory.py:99-109`) ---
     rgp0 = None
     gp_aug = None
-    gpe = None
     if cfg.gpe == 1:
         assert cfg.gp_path, "--gp_path required for --gpe 1"
         gpe = GPEnsemble.fromdir(cfg.gp_path, "GP")
@@ -117,6 +106,23 @@ def run_sim(cfg: SimConfig, verbose: bool = True):
                 [(-cfg.v_max, cfg.v_max)] * 3, cfg.n_basis, theta=cfg.rgp_theta, dtype=dtype
             )
         rgp0 = gpe.state
+    return ecfg, solver, p, x0, x_traj, t_traj, rgp0, gp_aug
+
+
+def run_sim(cfg: SimConfig, verbose: bool = True):
+    """Build everything and run the closed loop.  Returns (logger, outs, extras)."""
+    import jax
+    import jax.numpy as jnp
+
+    from .io.logger import Logger
+    from .loop import run_episode, run_episode_batch
+    from .models.params import randomize_params
+    from .loop.episode import tracking_rmse
+
+    cfg = cfg.clamp_limits()
+    dtype = jnp.float32 if not os.environ.get("MPCQUAD_X64") else jnp.float64
+    ecfg, solver, p, x0, x_traj, t_traj, rgp0, gp_aug = build_sim(cfg, dtype)
+    n_ticks = x_traj.shape[0]
 
     if verbose:
         print(f"Optimizer MPC lookahead={cfg.t_lookahead}s, nodes={cfg.n_nodes}, "
@@ -139,8 +145,8 @@ def run_sim(cfg: SimConfig, verbose: bool = True):
             jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), gp_aug)
             if gp_aug is not None else None
         )
-        # large batches take the batch-major scan + Pallas QP kernel; small
-        # ones the vmap-of-scan path (less compile, same numerics)
+        # large batches take the batch-major scan (one batched solve per
+        # tick); small ones the vmap-of-scan path (less compile, same numerics)
         if B >= 32:
             final, outs = run_episode_batch_fused(ecfg, solver, pb, x0b, trajb,
                                                   n_ticks, rgpb, gp_aug=gp_augb)
@@ -198,10 +204,13 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true", help="force the CPU backend")
     args = parser.parse_args(argv)
 
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from .io.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = SimConfig(
         gpe=args.gpe, trajectory=args.trajectory, v_max=args.v_max, a_max=args.a_max,

@@ -12,6 +12,7 @@ All functions broadcast over arbitrary leading batch dims.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -40,7 +41,8 @@ def q_to_rot_mat(q: jnp.ndarray) -> jnp.ndarray:
 
 def v_dot_q(v: jnp.ndarray, q: jnp.ndarray) -> jnp.ndarray:
     """Rotate vector v (..., 3) by quaternion q (..., 4).  (`utils.py:317-322`)"""
-    return jnp.einsum("...ij,...j->...i", q_to_rot_mat(q), v)
+    return jnp.einsum("...ij,...j->...i", q_to_rot_mat(q), v,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def quaternion_inverse(q: jnp.ndarray) -> jnp.ndarray:

@@ -1,14 +1,9 @@
-"""qp_method="auto" backend dispatch + the condensed kernels' VMEM-ceiling
-fallback (VERDICT r4 weak #1 / next-round item 2).
-
-The crossover table itself is measured on TPU (outputs/roofline/
-CROSSOVER_r05.json); here we pin (a) the resolution logic, (b) that an
-auto-dispatched solve equals the explicitly-selected backend bitwise, and
-(c) that an explicit "pdip" past FUSED_N_MAX resolves to the Riccati
-backend with a warning instead of a Mosaic VMEM crash.
+"""qp_method="auto" backend dispatch: the condensed IPM below
+`AUTO_RICCATI_MIN_N` (from the H100 crossover sweep of
+`bench.suite.riccati_crossover`, PERF.md), the O(N) Riccati IPM from it on;
+and solve_batch's choice of form by batch size and horizon
+(`LANES_MIN_BATCH`, `LANES_MAX_N`).
 """
-
-import warnings
 
 import numpy as np
 import jax
@@ -18,8 +13,7 @@ import pytest
 from mpc_quad_ros_tpu.models.augmented import make_mpc_dynamics
 from mpc_quad_ros_tpu.models.params import hummingbird_params
 from mpc_quad_ros_tpu.ops import MPCConfig, SQPSolver
-from mpc_quad_ros_tpu.ops.sqp import (AUTO_RICCATI_MIN_N_TILED,
-                                      AUTO_RICCATI_MIN_N_XLA, FUSED_N_MAX,
+from mpc_quad_ros_tpu.ops.sqp import (AUTO_RICCATI_MIN_N, LANES_MAX_N, LANES_MIN_BATCH,
                                       init_carry)
 
 DTYPE = jnp.float32
@@ -33,33 +27,46 @@ def _solver(**kw):
 
 def test_resolution_table():
     s, _ = _solver(qp_method="auto", n_nodes=10)
-    assert s._resolve_qp_method(tiled=True) == "pdip"
-    assert s._resolve_qp_method(tiled=False) == "pdip"
-
-    s, _ = _solver(qp_method="auto", n_nodes=AUTO_RICCATI_MIN_N_TILED)
-    assert s._resolve_qp_method(tiled=True) == "riccati"
-    assert s._resolve_qp_method(tiled=False) == "pdip"
-
-    s, _ = _solver(qp_method="auto", n_nodes=AUTO_RICCATI_MIN_N_XLA,
-                   t_horizon=float(AUTO_RICCATI_MIN_N_XLA) / 10)
-    assert s._resolve_qp_method(tiled=False) == "riccati"
-
-    # explicit choices pass through untouched below the ceiling
+    assert s._resolve_qp_method() == "pdip"
+    s, _ = _solver(qp_method="auto", n_nodes=AUTO_RICCATI_MIN_N - 1,
+                   t_horizon=(AUTO_RICCATI_MIN_N - 1) / 10)
+    assert s._resolve_qp_method() == "pdip"
+    s, _ = _solver(qp_method="auto", n_nodes=AUTO_RICCATI_MIN_N,
+                   t_horizon=AUTO_RICCATI_MIN_N / 10)
+    assert s._resolve_qp_method() == "riccati"
+    # explicit choices pass through untouched at any horizon
     s, _ = _solver(qp_method="riccati", n_nodes=10)
-    assert s._resolve_qp_method(tiled=True) == "riccati"
-    s, _ = _solver(qp_method="pdip", n_nodes=FUSED_N_MAX)
-    assert s._resolve_qp_method(tiled=True) == "pdip"
+    assert s._resolve_qp_method() == "riccati"
+    s, _ = _solver(qp_method="pdip", n_nodes=80, t_horizon=8.0)
+    assert s._resolve_qp_method() == "pdip"
 
 
-def test_vmem_ceiling_fallback_warns():
-    s, _ = _solver(qp_method="pdip", n_nodes=FUSED_N_MAX + 4,
-                   t_horizon=(FUSED_N_MAX + 4) / 10)
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert s._resolve_qp_method(tiled=True) == "riccati"
-    assert any("VMEM ceiling" in str(x.message) for x in w)
-    # the per-scenario XLA path has no VMEM tile — no fallback there
-    assert s._resolve_qp_method(tiled=False) == "pdip"
+def test_auto_threshold_between_measured_horizons():
+    """The H100 sweep (B=4096) measured the condensed IPM, in the form
+    solve_batch dispatches to, faster than the Riccati IPM at N = 10, 20 and
+    40; the threshold must sit past the last of them, and lanes-last
+    solves must stop where that form was last measured."""
+    assert AUTO_RICCATI_MIN_N > 40
+    assert LANES_MAX_N == 20
+
+
+@pytest.mark.parametrize("B,N", [(1, 10), (LANES_MIN_BATCH - 1, 10), (LANES_MIN_BATCH, 10),
+                                 (LANES_MIN_BATCH, LANES_MAX_N),
+                                 (LANES_MIN_BATCH, LANES_MAX_N + 1)])
+def test_small_batches_take_the_per_scenario_form(B, N, monkeypatch):
+    """Below LANES_MIN_BATCH scenarios or past LANES_MAX_N stages solve_batch
+    IS the vmapped per-scenario solve; otherwise it runs the lanes-last
+    kernels (`ops/lanes.py`)."""
+    from mpc_quad_ros_tpu.ops import lanes
+
+    calls = []
+    real = lanes.box_qp_pdip
+    monkeypatch.setattr(lanes, "box_qp_pdip",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    s, cfg = _solver(qp_iters=2, n_nodes=N, t_horizon=N / 10.0)
+    carry, x0, y_ref = _inputs(cfg, B)
+    jax.eval_shape(lambda c, x, yr: s.solve_batch(c, x, yr, yr[:, -1]), carry, x0, y_ref)
+    assert bool(calls) == (B >= LANES_MIN_BATCH and N <= LANES_MAX_N)
 
 
 def _inputs(cfg, B=4):
@@ -71,11 +78,11 @@ def _inputs(cfg, B=4):
     return carry, x0, y_ref
 
 
-@pytest.mark.parametrize("n_nodes,explicit", [(10, "pdip"), (33, "riccati")])
+@pytest.mark.parametrize("n_nodes,explicit", [(10, "pdip"), (AUTO_RICCATI_MIN_N, "riccati")])
 @pytest.mark.slow
 def test_auto_solve_matches_explicit_backend(n_nodes, explicit):
-    """auto-dispatched solve_batch (small-B, non-tiled path) == the
-    explicitly-selected backend, bitwise (same code path after resolution)."""
+    """auto-dispatched solve_batch == the explicitly-selected backend,
+    bitwise (same code path after resolution)."""
     kw = dict(n_nodes=n_nodes, t_horizon=n_nodes / 10.0, qp_iters=4)
     s_auto, cfg = _solver(qp_method="auto", **kw)
     s_exp, _ = _solver(qp_method=explicit, **kw)
@@ -86,29 +93,3 @@ def test_auto_solve_matches_explicit_backend(n_nodes, explicit):
         carry, x0, y_ref)
     np.testing.assert_array_equal(np.asarray(sol_a.U), np.asarray(sol_e.U))
     np.testing.assert_array_equal(np.asarray(sol_a.X), np.asarray(sol_e.X))
-
-
-def test_auto_thresholds_consistent_with_measured_crossover():
-    """The dispatch constants must agree with the checked-in measured
-    crossover artifact — if a re-measure moves the crossover, this fails
-    until the constants (or the artifact) are updated together."""
-    import json
-    import os
-
-    art = os.path.join(os.path.dirname(__file__), "..",
-                       "outputs", "roofline", "CROSSOVER_r05.json")
-    if not os.path.exists(art):
-        pytest.skip("crossover artifact not present")
-    rows = {r["n_nodes"]: r for r in json.load(open(art))}
-    for N, r in rows.items():
-        f = r.get("fused_us_per_solve")
-        rp = r.get("riccati_pallas_us_per_solve")
-        if f is None or rp is None:
-            continue
-        if N < AUTO_RICCATI_MIN_N_TILED:
-            assert f <= rp, (N, f, rp)
-        else:
-            assert rp <= f, (N, f, rp)
-    # the condensed kernels' ceiling row is recorded as a guard, not a crash
-    assert any(N > FUSED_N_MAX and rows[N].get("fused_us_per_solve") is None
-               and "fused_note" in rows[N] for N in rows)

@@ -41,8 +41,8 @@ def test_golden_nominal_prediction_parity(golden_gazebo_log):
     np.testing.assert_allclose(pred, P, atol=1e-12)
 
 
-def test_xacro_params_match_hardcoded():
-    a = params_from_xacro("/root/reference/config/hummingbird.xacro", dtype=jnp.float64)
+def test_xacro_params_match_hardcoded(reference_tree):
+    a = params_from_xacro(str(reference_tree / "config/hummingbird.xacro"), dtype=jnp.float64)
     b = hummingbird_params(dtype=jnp.float64)
     for la, lb in zip(a, b):
         np.testing.assert_allclose(np.asarray(la), np.asarray(lb), rtol=1e-12)

@@ -6,10 +6,10 @@ sharded across N>=2 processes with psum'd QP/convergence reductions.  Real
 multi-host hardware is not available here, but multi-process CORRECTNESS is
 fully testable on CPU: 2 local processes x 4 virtual devices each, joined by
 `jax.distributed.initialize` over a localhost coordinator with gloo
-collectives — exactly the code path a TPU pod runs, minus the transport.
+collectives — the code path several GPU hosts run, minus the transport.
 
 Round 5 raises this from a smoke test to the production operating point:
-qp_iters=12 with the default pipeline="hybrid" (what bench.py measures), a
+qp_iters=12 through solve_batch (what bench.py measures), a
 CHAIN of warm-started RTI solves per step (the tick chain), and a
 closed-loop RGP-learning episode leg asserted against the single-process
 oracle, not just cross-process agreement.

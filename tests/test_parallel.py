@@ -42,7 +42,7 @@ def make_batch(B):
 def test_sharded_episode_batch_matches_single_device():
     B = 8
     cfg, solver, p, x0, x_traj, rgp, T = make_batch(B)
-    mesh = make_mesh(8)
+    mesh = make_mesh(8, backend="cpu")
 
     def step(batch):
         x0, traj, rgp = batch
@@ -72,9 +72,15 @@ def test_sharded_episode_batch_matches_single_device():
     assert len(shardings) == 8
 
 
+def test_make_mesh_raises_with_too_few_devices():
+    """No silent fallback to another platform or a smaller mesh."""
+    with pytest.raises(RuntimeError, match="need 9"):
+        make_mesh(9, backend="cpu")
+
+
 def test_uneven_to_even_padding_contract():
     """Batch must be divisible by mesh size — document the contract."""
-    mesh = make_mesh(8)
+    mesh = make_mesh(8, backend="cpu")
     cfg, solver, p, x0, x_traj, rgp, T = make_batch(4)
 
     def step(batch):
@@ -87,17 +93,17 @@ def test_uneven_to_even_padding_contract():
 
 
 def test_fused_solve_batch_under_shard_map():
-    """The flagship throughput path — solve_batch's fused Pallas pipeline
-    (B >= 128 per shard) — must run under a real device mesh and agree with
-    the per-scenario `solve` path (VERDICT r1 weak #2: the multi-device tests
-    previously only exercised tiny per-scenario batches)."""
+    """The flagship throughput path — solve_batch's lanes-last form
+    (B >= LANES_MIN_BATCH per shard) — must run under a device mesh and agree
+    with the per-scenario `solve` path (VERDICT r1 weak #2: the multi-device
+    tests previously only exercised tiny per-scenario batches)."""
     dtype = jnp.float32
     n_dev = 8
-    B = 128 * n_dev           # one full lane tile per device -> fused kernel
+    B = 128 * n_dev           # 128 scenarios per device -> lanes-last form
     p = hummingbird_params(dtype=dtype)
     # extra QP iterations so both implementations are near-converged and the
     # comparison measures the same optimum, not truncation differences
-    # (same rationale as test_pallas_qp.test_solve_batch_matches_vmapped_solve)
+    # (same rationale as test_batch_solve.test_solve_batch_matches_vmapped_solve)
     mpc = MPCConfig(u_ref=float(p.hover_input), qp_iters=25)
     solver = SQPSolver(mpc, make_mpc_dynamics(p))
     from mpc_quad_ros_tpu.ops.sqp import init_carry
@@ -110,7 +116,7 @@ def test_fused_solve_batch_under_shard_map():
     rgp = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, 3) + a.shape), rgp1)
     carry = jax.vmap(lambda x: init_carry(mpc, x))(x0)
 
-    mesh = make_mesh(n_dev)
+    mesh = make_mesh(n_dev, backend="cpu")
 
     def step(batch):
         c, x, yr, r = batch

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import minimize
 
+from mpc_quad_ros_tpu.ops import lanes
 from mpc_quad_ros_tpu.ops.qp import (
     solve_box_qp_pdip,
     solve_box_qp_projected_newton,
@@ -90,3 +91,33 @@ def test_vmap_batch():
     for i in range(16):
         ref = scipy_solution(np.asarray(Hs[i]), np.asarray(gs[i]), np.zeros(12), np.ones(12))
         np.testing.assert_allclose(np.asarray(zs[i]), ref, atol=2e-5)
+
+
+def _random_qps(B, nz, seed, dtype):
+    A = jax.random.normal(jax.random.PRNGKey(seed), (B, nz, nz), dtype)
+    H = jnp.einsum("bij,bkj->bik", A, A) + 0.5 * jnp.eye(nz, dtype=dtype)
+    g = jax.random.normal(jax.random.PRNGKey(seed + 1), (B, nz), dtype) * 3
+    lb = jnp.broadcast_to(-jnp.linspace(0.1, 1.0, nz, dtype=dtype), (B, nz))
+    return H, g, lb, lb + 1.0
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("B,nz", [(1, 40), (100, 16), (256, 40)])
+def test_lanes_box_qp_matches_pdip_oracle(B, nz, warm):
+    """`lanes.box_qp_pdip` is `ops/qp.solve_box_qp_pdip` run lanes-last:
+    same start, barrier schedule, step rule and dual outputs."""
+    H, g, lb, ub = _random_qps(B, nz, 3, jnp.float64)
+    zl0 = zu0 = None
+    if warm:
+        zl0 = jax.random.uniform(jax.random.PRNGKey(7), (B, nz), jnp.float64, 0.0, 2.0)
+        zu0 = jax.random.uniform(jax.random.PRNGKey(8), (B, nz), jnp.float64, 0.0, 2.0)
+    ref = jax.vmap(lambda H, g, l, u, a, b: solve_box_qp_pdip(
+        H, g, l, u, iters=10, zl0=a, zu0=b, return_duals=True),
+        in_axes=(0, 0, 0, 0, 0 if warm else None, 0 if warm else None))(
+            H, g, lb, ub, zl0, zu0)
+    last = lambda a: None if a is None else jnp.moveaxis(a, 0, -1)
+    out = lanes.box_qp_pdip(last(H), last(g), last(lb), last(ub), last(zl0),
+                            last(zu0), iters=10)
+    for o, r in zip(out, ref):
+        assert o.shape == (nz, B)
+        np.testing.assert_allclose(np.asarray(o).T, np.asarray(r), atol=1e-9)

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 from mpc_quad_ros_tpu.models.params import hummingbird_params
 from mpc_quad_ros_tpu.models.augmented import make_mpc_dynamics
 from mpc_quad_ros_tpu.ops import MPCConfig, SQPSolver
+from mpc_quad_ros_tpu.ops.riccati import solve_ocp_box_riccati_ipm
 from mpc_quad_ros_tpu.ops.sqp import init_carry
 
 DT = jnp.float64
@@ -181,3 +182,64 @@ def test_shift_warm_start_default_off_preserves_parity():
     """The acados-parity chain must run with shifting OFF by default."""
     cfg = MPCConfig()
     assert cfg.shift_warm_start is False
+
+
+def test_riccati_batch_matches_f64_oracle_on_saturated_instances():
+    """The vmapped f32 Riccati IPM on random OCPs where most bounds are
+    active sits within the 12-iteration convergence slack of the converged
+    f64 per-scenario solution."""
+    B, N, NX, NU = 64, 12, 13, 4
+    rng = np.random.default_rng(0)
+    A = rng.normal(0, 0.08, (B, N, NX, NX)) + np.eye(NX)
+    Bm = rng.normal(0, 0.15, (B, N, NX, NU))
+    c = rng.normal(0, 0.02, (B, N, NX))
+    dx0 = rng.normal(0, 0.05, (B, NX))
+    qlin = rng.normal(0, 0.5, (B, N, NX))
+    rlin = rng.normal(0, 0.1, (B, N, NU))
+    plin = rng.normal(0, 0.5, (B, NX))
+    lb = np.full((B, N, NU), -0.16)
+    ub = np.full((B, N, NU), 0.3)
+    q = np.asarray((10.0, 10.0, 10.0) + (0.1,) * 4 + (0.05,) * 6)
+    rd = np.full(NU, 0.1)
+    pt = 2.0 * q
+
+    def run(dtype, iters):
+        cast = lambda a: jnp.asarray(a, dtype)
+        one = lambda A, Bm, c, ql, rl, pl, dx, l, u: solve_ocp_box_riccati_ipm(
+            A, Bm, c, cast(q), ql, cast(rd), rl, cast(pt), pl, dx0=dx,
+            u_lb=l, u_ub=u, iters=iters)[0]
+        return np.asarray(jax.jit(jax.vmap(one))(*(cast(a) for a in (
+            A, Bm, c, qlin, rlin, plin, dx0, lb, ub))), np.float64)
+
+    truth = run(jnp.float64, 40)
+    sat = np.mean((truth <= -0.16 + 1e-3) | (truth >= 0.3 - 1e-3))
+    assert sat > 0.5, sat
+    assert np.abs(run(jnp.float32, 12) - truth).max() < 1e-3
+
+
+def test_solve_batch_riccati_matches_vmapped_solve():
+    """`solve_batch(qp_method='riccati')` with the RGP model equals the
+    vmapped per-scenario `solve` (the same Riccati IPM and line-search
+    finish)."""
+    from mpc_quad_ros_tpu.models.rgp import rgp_init
+
+    dtype = jnp.float32
+    B, N = 6, 15
+    p = hummingbird_params(dtype=dtype)
+    cfg = MPCConfig(n_nodes=N, t_horizon=0.1 * N, u_ref=float(p.hover_input),
+                    qp_method="riccati")
+    solver = SQPSolver(cfg, make_mpc_dynamics(p))
+    key = jax.random.PRNGKey(0)
+    x0 = jnp.zeros((B, 13), dtype).at[:, 3].set(1.0).at[:, 2].set(3.0)
+    x0 = x0.at[:, 7:10].add(jax.random.uniform(key, (B, 3), dtype, -2, 2))
+    y_ref = jnp.broadcast_to(x0[:, None, :], (B, N, 13)).at[:, :, 0].add(0.5)
+    carry = jax.vmap(lambda x: init_carry(cfg, x))(x0)
+    rgp1 = rgp_init(jnp.linspace(-10, 10, 10, dtype=dtype), theta=(3.0, 0.1, 0.01))
+    rgp = jax.tree.map(lambda a: jnp.broadcast_to(a, (B, 3) + a.shape), rgp1)
+
+    _, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    _, sol_v = jax.vmap(lambda c, x, yr, r: solver.solve(c, x, yr, yr[-1], r))(
+        carry, x0, y_ref, rgp)
+    np.testing.assert_allclose(np.asarray(sol.U), np.asarray(sol_v.U), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(sol.X), np.asarray(sol_v.X), atol=1e-4)
+    assert float(sol.U.min()) >= 0.0 and float(sol.U.max()) <= 1.0

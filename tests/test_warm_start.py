@@ -5,7 +5,7 @@ warm-started duals HALVE the factorizations needed on near-steady RTI chains
 but lose badly on aggressive transients whose active set flips tick-to-tick —
 hence default OFF.  These tests pin (a) the flag-off path is bit-identical to
 the historical cold start, (b) the dual state round-trips through the carry
-in all three solver paths, (c) the steady-chain win is real.
+in every solver path, (c) the steady-chain win is real.
 """
 
 import numpy as np
@@ -90,8 +90,8 @@ def test_steady_chain_warm6_matches_cold12():
 
 @pytest.mark.slow
 def test_duals_round_trip_batched_paths():
-    """solve_batch: both the fused Pallas pipeline (B=128) and the
-    per-scenario small-batch path (B=8) must thread the duals, and the warm
+    """solve_batch: both the lanes-last form (B=128) and the per-scenario
+    small-batch form (B=8) must thread the duals, and the warm
     and cold solutions must EACH sit within the f32 IPM convergence slack of
     the f64 converged optimum of the same QP.
 
@@ -103,8 +103,7 @@ def test_duals_round_trip_batched_paths():
     iterates from different starting points legitimately differ by up to
     twice that (measured: warm-cold 5.4e-3 while warm is the CLOSER one to
     the oracle — 2.9e-3 vs cold's 3.3e-3).  The honest assert is
-    each-vs-oracle plus a KKT bound; see tests/test_pipeline_equivalence.py
-    for the same slack pinned across pipelines."""
+    each-vs-oracle plus a KKT bound."""
     from mpc_quad_ros_tpu.ops.qp import solve_box_qp_pdip
     from mpc_quad_ros_tpu.ops.sqp import _fold_aug
 
@@ -115,11 +114,9 @@ def test_duals_round_trip_batched_paths():
         cfgc, solverc, carryc, *_ = _setup(False, 12, B=B)
         _, solc = solverc.solve_batch(carryc, x0, y_ref, y_ref[:, -1], rgp)
 
-        # f64 oracle of the shared QP subproblem (the H/g assembly is
-        # bitwise-identical across the batched pipelines — measured in
-        # test_pipeline_equivalence)
+        # f64 oracle of the shared QP subproblem
         aug = _fold_aug(rgp)
-        H, g, lb, ub, _, _ = solver._assemble_batch_soa(
+        H, g, lb, ub, _, _ = jax.vmap(solver._assemble)(
             carry.X, carry.U, x0, y_ref, y_ref[:, -1], aug)
         f64 = jnp.float64
         z_star = jax.vmap(
@@ -136,9 +133,9 @@ def test_duals_round_trip_batched_paths():
 
 
 def test_split_pipeline_duals():
-    """The tiled split pipeline threads duals too."""
+    """The lanes-last batched form threads duals too."""
     B = 128
-    cfg, solver, carry, x0, y_ref, rgp = _setup(True, 12, B=B, pipeline="split")
+    cfg, solver, carry, x0, y_ref, rgp = _setup(True, 12, B=B)
     c2, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
     assert c2.zl.shape == (B, cfg.n_nodes * 4)
     assert np.isfinite(np.asarray(sol.U)).all()
